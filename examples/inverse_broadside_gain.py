@@ -24,13 +24,12 @@ Workflow (optimize → threshold → validate, as the module prescribes):
    engine + `post/nf2ff.py` — the reported gain lift never rests on the
    soft density model.
 
-Measured on one TPU v5e chip (round 5, default arguments): the 0.88×
-perturbed patch has NO in-band resonance and −8.1 dBi broadside realized
-gain at 2.45 GHz; after 40 Adam iterations (51 s of optimization after
-compiles) the binarized design resonates at 2.548 GHz with S11 −24.9 dB
-and +6.4 dBi broadside realized gain — a **+14.5 dB validated lift**,
-every number from the standard energy-terminated engine + standard
-NF2FF, never the soft density model. On CPU use --quick.
+With the default arguments the 0.88× perturbed patch has no in-band
+resonance; the script reports the validated broadside realized gain
+before and after the optimization, every number from the standard
+energy-terminated engine + standard NF2FF, never the soft density model.
+Its run time and lift on the GPU are not measured yet. On CPU use
+--quick.
 
 Usage:
     python examples/inverse_broadside_gain.py [--iters 40] [--quick]
@@ -62,15 +61,8 @@ def main() -> None:
     from fdtd_solver_antennas_tpu.models.params import PatchAntennaParams
     from fdtd_solver_antennas_tpu.physics import design_patch_for_frequency
     from fdtd_solver_antennas_tpu.solvers.inverse import prepare_patch_inverse
-    from fdtd_solver_antennas_tpu.utils.backend import (
-        enable_compile_cache,
-        ensure_backend,
-    )
+    from fdtd_solver_antennas_tpu.utils.backend import enable_compile_cache
 
-    try:
-        ensure_backend()
-    except Exception:
-        pass
     enable_compile_cache()
 
     f0 = 2.45e9

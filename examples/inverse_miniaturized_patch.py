@@ -19,8 +19,7 @@ Workflow (the one the module docstring prescribes):
    engine path — every number reported below comes from that run, never
    from the soft density model.
 
-Runs in well under 10 minutes on one TPU v5e chip (~3 min typical:
-~40 s of compiles + ~1 s/iteration); on CPU use --quick.
+On the GPU the run time is not measured yet; on CPU use --quick.
 
 Usage:
     python examples/inverse_miniaturized_patch.py [--iters 60] [--quick]
@@ -54,15 +53,8 @@ def main() -> None:
     from fdtd_solver_antennas_tpu.models.params import PatchAntennaParams
     from fdtd_solver_antennas_tpu.physics import design_patch_for_frequency
     from fdtd_solver_antennas_tpu.solvers.inverse import prepare_patch_inverse
-    from fdtd_solver_antennas_tpu.utils.backend import (
-        enable_compile_cache,
-        ensure_backend,
-    )
+    from fdtd_solver_antennas_tpu.utils.backend import enable_compile_cache
 
-    try:
-        ensure_backend()
-    except Exception:
-        pass
     enable_compile_cache()
 
     f0 = 2.45e9

@@ -1,6 +1,6 @@
-"""TPU-native patch-antenna simulation framework.
+"""Patch-antenna simulation framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 ``Veeryan/FDTD-solver-antennas`` project (``antenna_sim`` package): analytical
 cavity-model solver, Yee-grid FDTD engine (replacing the external openEMS C++
 DLLs), microstrip/multi-patch scene solvers, port S-parameter and NF2FF
@@ -8,7 +8,11 @@ post-processing, plotting, and CLI/web frontends.
 
 Public API mirrors the reference export surface
 (``/root/reference/antenna_sim/__init__.py:1-57``) so users of the reference
-find the same names here, while everything numeric runs TPU-first.
+find the same names here, while everything numeric runs on the JAX device
+(an NVIDIA GPU, or the CPU).
+
+The plotting helpers import matplotlib on first use only, so the engine
+imports without it.
 """
 
 from .utils.backend import disable_numpy_hugepage_stalls as _no_thp
@@ -90,14 +94,24 @@ from .solvers.array_synth import (
     EmbeddedPatternSet,
     compute_embedded_patterns,
 )
-from .viz.plotting import (
-    plot_cross_sections,
-    plot_3d_pattern,
-    plot_3d_pattern_from_grid,
-    draw_patch_3d_geometry,
-    draw_patch_top_view,
-    draw_microstrip_patch_3d_geometry,
+
+_PLOTTING_NAMES = (
+    "plot_cross_sections",
+    "plot_3d_pattern",
+    "plot_3d_pattern_from_grid",
+    "draw_patch_3d_geometry",
+    "draw_patch_top_view",
+    "draw_microstrip_patch_3d_geometry",
 )
+
+
+def __getattr__(name):
+    if name in _PLOTTING_NAMES:
+        from .viz import plotting
+
+        return getattr(plotting, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __version__ = "0.1.0"
 

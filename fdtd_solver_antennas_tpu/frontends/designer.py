@@ -262,8 +262,12 @@ class MultiPatchScene:
         return fig
 
     # --- solver bridge ----------------------------------------------------
-    def prepare(self, verbose: int = 0, log_cb=None):
-        """Prepare the multi-patch FDTD run from the current scene state."""
+    def prepare(self, verbose: int = 0, log_cb=None,
+                pad_multiple=(1, 1, 1)):
+        """Prepare the multi-patch FDTD run from the current scene state.
+
+        ``pad_multiple`` zero-pads the grid (e.g. ``(4, 1, 1)`` to shard x
+        over four devices; see :func:`ops.fdtd.build_simulation`)."""
         c = self.controls
         return prepare_multi_patch_3d(
             self.patches,
@@ -279,6 +283,7 @@ class MultiPatchScene:
             end_criteria_db=c.end_criteria_db,
             verbose=verbose,
             log_cb=log_cb,
+            pad_multiple=pad_multiple,
         )
 
     def simulate(self, frequency_hz: Optional[float] = None, verbose: int = 0,

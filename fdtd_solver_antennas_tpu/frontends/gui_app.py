@@ -27,7 +27,7 @@ provides the same *capabilities* as a portable Tk app over the headless
   the default browser — the portable PyVista-view replacement.
 
 Requires a display; ``python -m fdtd_solver_antennas_tpu.frontends.gui_app``
-launches it. All compute paths are the same TPU-native solvers the CLI and
+launches it. All compute paths are the same JAX solvers the CLI and
 web UI use. The module-level helpers below are headless and unit-tested
 (tests/test_gui_helpers.py).
 """
@@ -388,7 +388,7 @@ def main() -> None:  # pragma: no cover — needs a display
     from .designer import MultiPatchScene
 
     root = tk.Tk()
-    root.title("Patch Antenna Simulator — TPU-native FDTD")
+    root.title("Patch Antenna Simulator — JAX FDTD")
     root.configure(bg=ModernStyle.BG)
     root.geometry("1380x900")
 

@@ -205,8 +205,8 @@ def main() -> None:  # pragma: no cover - exercised manually via streamlit
     )
     from ..viz.scene3d import patch_scene_meshes, scene_html
 
-    st.set_page_config(page_title="Patch Antenna Simulator (TPU)", layout="wide")
-    st.title("Patch Antenna Simulator — TPU-native FDTD")
+    st.set_page_config(page_title="Patch Antenna Simulator (JAX FDTD)", layout="wide")
+    st.title("Patch Antenna Simulator — JAX FDTD")
 
     for key in ("prepared_fixed", "prepared_legacy", "legacy_mode",
                 "fixed_run", "fixed_result", "array_run", "array_design"):
@@ -259,7 +259,7 @@ def main() -> None:  # pragma: no cover - exercised manually via streamlit
         col.metric(label, fmt.format(summary[key]))
 
     tab_analytical, tab_fdtd, tab_legacy, tab_array, tab_scene = st.tabs(
-        ["Analytical", "FDTD (TPU)", "Legacy / 2D", "Array", "Scene 3D"]
+        ["Analytical", "FDTD", "Legacy / 2D", "Array", "Scene 3D"]
     )
 
     def analytical_compare_expander():
@@ -326,7 +326,7 @@ def main() -> None:  # pragma: no cover - exercised manually via streamlit
                 from .gui_app import format_progress
 
                 pct, text = format_progress(done, total, ratio)
-                st.progress(pct / 100.0, text=f"Time-stepping on TPU — {text}")
+                st.progress(pct / 100.0, text=f"Time-stepping — {text}")
                 if st.button("🛑 Stop run", disabled=run.aborting):
                     run.abort()
                 import time as _time
@@ -414,7 +414,7 @@ def main() -> None:  # pragma: no cover - exercised manually via streamlit
             (st.success if prep.ok else st.error)(prep.message)
         if run_legacy_btn and st.session_state.prepared_legacy is not None:
             mode = st.session_state.legacy_mode or legacy_mode
-            with st.spinner(f"Running {mode} on TPU…"):
+            with st.spinner(f"Running {mode}…"):
                 result = run_legacy_mode(
                     st.session_state.prepared_legacy, mode,
                     frequency_hz=params.frequency_hz,

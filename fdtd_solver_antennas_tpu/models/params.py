@@ -1,17 +1,33 @@
-"""Pydantic parameter models for antennas (SI internals, mm/GHz constructors).
+"""Parameter models for antennas (SI internals, mm/GHz constructors).
 
 Parity with the reference domain model (``antenna_sim/models.py:1-191``):
 ``Metal`` enum + conductor property table, ``PatchAntennaParams`` and
 ``HornAntennaParams`` with ``from_user_units`` mm/GHz constructors and the
-same validation (positive fields, εr > 1).
+same validation (positive fields, εr > 1), as plain dataclasses that raise
+``ValueError`` on construction.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from enum import Enum
 from typing import Optional
 
-from pydantic import BaseModel, Field
+
+def _check(obj, **bounds) -> None:
+    """Enforce ``field=(op, limit)`` bounds on ``obj``; ``op`` is "gt" or
+    "ge". ``None`` passes (optional fields)."""
+    for name, (op, limit) in bounds.items():
+        val = getattr(obj, name)
+        if val is None:
+            continue
+        ok = val > limit if op == "gt" else val >= limit
+        if not ok:
+            sign = ">" if op == "gt" else ">="
+            raise ValueError(
+                f"{type(obj).__name__}.{name} must be {sign} {limit}, "
+                f"got {val!r}"
+            )
 
 
 class Metal(str, Enum):
@@ -22,12 +38,14 @@ class Metal(str, Enum):
     TIN = "tin"
 
 
-class MetalProperties(BaseModel):
+@dataclasses.dataclass
+class MetalProperties:
     name: str
-    conductivity_s_per_m: float = Field(gt=0)
-    thickness_m: float = Field(
-        default=35e-6, gt=0, description="Metal thickness (default ~1 oz copper)"
-    )
+    conductivity_s_per_m: float
+    thickness_m: float = 35e-6  # metal thickness (default ~1 oz copper)
+
+    def __post_init__(self):
+        _check(self, conductivity_s_per_m=("gt", 0), thickness_m=("gt", 0))
 
     def display(self) -> str:
         ms = self.conductivity_s_per_m / 1e7
@@ -59,29 +77,37 @@ def _resolve_metal(metal: str, metal_thickness_um: Optional[float]) -> MetalProp
         metal_enum = Metal(metal.lower())
     except ValueError:
         metal_enum = Metal.COPPER
-    props = metal_defaults[metal_enum].model_copy(deep=True)
+    props = dataclasses.replace(metal_defaults[metal_enum])
     if metal_thickness_um is not None:
         props.thickness_m = max(1e-7, metal_thickness_um * 1e-6)
     return props
 
 
-class PatchAntennaParams(BaseModel):
+@dataclasses.dataclass
+class PatchAntennaParams:
     """Rectangular microstrip patch antenna parameters (SI units internally).
 
     If ``patch_length_m``/``patch_width_m`` are omitted, they are designed
     for TM10 resonance at ``frequency_hz`` (reference: models.py:36-107).
     """
 
-    frequency_hz: float = Field(gt=0)
-    eps_r: float = Field(gt=1)
-    h_m: float = Field(gt=0)
-    loss_tangent: float = Field(default=0.0, ge=0)
-    metal: MetalProperties = Field(
+    frequency_hz: float
+    eps_r: float
+    h_m: float
+    loss_tangent: float = 0.0
+    metal: MetalProperties = dataclasses.field(
         default_factory=lambda: metal_defaults[Metal.COPPER]
     )
 
-    patch_length_m: Optional[float] = Field(default=None, gt=0)
-    patch_width_m: Optional[float] = Field(default=None, gt=0)
+    patch_length_m: Optional[float] = None
+    patch_width_m: Optional[float] = None
+
+    def __post_init__(self):
+        _check(
+            self, frequency_hz=("gt", 0), eps_r=("gt", 1), h_m=("gt", 0),
+            loss_tangent=("ge", 0), patch_length_m=("gt", 0),
+            patch_width_m=("gt", 0),
+        )
 
     @classmethod
     def from_user_units(
@@ -123,22 +149,31 @@ class PatchAntennaParams(BaseModel):
         return None if self.patch_width_m is None else self.patch_width_m * 1e3
 
 
-class HornAntennaParams(BaseModel):
+@dataclasses.dataclass
+class HornAntennaParams:
     """Rectangular pyramidal horn antenna parameters (reference: models.py:110-191).
 
     TE10 polarization implied (E along b); placement/rotation is handled by
     scene instances, not here.
     """
 
-    frequency_hz: float = Field(gt=0)
-    throat_a_m: float = Field(gt=0, description="Throat width a (m), broad dimension")
-    throat_b_m: float = Field(gt=0, description="Throat height b (m), narrow dimension")
-    aperture_A_m: float = Field(gt=0, description="Aperture width A (m)")
-    aperture_B_m: float = Field(gt=0, description="Aperture height B (m)")
-    length_m: float = Field(gt=0, description="Horn axial length L (m)")
-    metal: MetalProperties = Field(
+    frequency_hz: float
+    throat_a_m: float  # throat width a (m), broad dimension
+    throat_b_m: float  # throat height b (m), narrow dimension
+    aperture_A_m: float  # aperture width A (m)
+    aperture_B_m: float  # aperture height B (m)
+    length_m: float  # horn axial length L (m)
+    metal: MetalProperties = dataclasses.field(
         default_factory=lambda: metal_defaults[Metal.COPPER]
     )
+
+    def __post_init__(self):
+        _check(self, **{
+            k: ("gt", 0) for k in (
+                "frequency_hz", "throat_a_m", "throat_b_m", "aperture_A_m",
+                "aperture_B_m", "length_m",
+            )
+        })
 
     @classmethod
     def from_user_units(

@@ -1,4 +1,4 @@
-"""Declarative scene model: the TPU-native replacement for CSXCAD.
+"""Declarative scene model: the in-repo replacement for CSXCAD.
 
 The reference builds geometry through the CSXCAD C++ bindings
 (``ContinuousStructure`` / ``AddMetal`` / ``AddMaterial`` / ``AddBox`` /

@@ -59,7 +59,7 @@ def get_voxelize_lib() -> Optional[ctypes.CDLL]:
         if _TRIED:
             return _LIB
         _TRIED = True
-        if os.environ.get("FDTD_TPU_DISABLE_NATIVE"):
+        if os.environ.get("FDTD_DISABLE_NATIVE"):
             return None
         path = _build_library()
         if path is None:

@@ -1,6 +1,6 @@
 // Native voxelizer core: oriented-box containment over point grids.
 //
-// The TPU-native counterpart of the geometry rasterization CSXCAD.dll does
+// The in-repo counterpart of the geometry rasterization CSXCAD.dll does
 // in C++ for the reference (AddBox/AddTransform → cell properties). The
 // Python voxelizer calls this for its hot loop — testing every Yee-edge
 // midpoint / cell center against every scene primitive — and falls back to

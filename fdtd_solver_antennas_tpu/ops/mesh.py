@@ -1,6 +1,6 @@
 """Graded rectilinear Yee-mesh builder.
 
-TPU-native replacement for the CSXCAD mesh API the reference drives through
+In-repo replacement for the CSXCAD mesh API the reference drives through
 ``GetGrid``/``AddLine``/``SmoothMeshLines(ratio=1.4)``/``AddEdges2Grid``
 (reference: ``solver_fdtd_openems_fixed.py:177-217``,
 ``solver_fdtd_openems_microstrip.py:224-335``). Output is a set of per-axis

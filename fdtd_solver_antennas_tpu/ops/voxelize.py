@@ -1,6 +1,6 @@
 """Voxelizer: declarative scene → material arrays on the staggered Yee grid.
 
-TPU-native replacement for CSXCAD's rasterization of ``AddMetal``/
+In-repo replacement for CSXCAD's rasterization of ``AddMetal``/
 ``AddMaterial``/``AddBox`` primitives with priorities and rigid transforms
 (reference invocations: ``solver_fdtd_openems_fixed.py:189-210``,
 ``solver_fdtd_openems_microstrip_multi_3d.py:334-456``). Produces:

@@ -1,11 +1,11 @@
 """Multi-chip spatial decomposition via ``jax.sharding`` (GSPMD).
 
 The reference has no distributed execution at all (SURVEY §2.3); its C++
-engine threads internally. The TPU-native scale-out analog is *spatial
+engine threads internally. The scale-out analog here is *spatial
 sharding of the Yee grid*: fields and coefficient arrays are annotated with
 a ``NamedSharding`` over a device mesh and the exact same step function is
 jitted — XLA's SPMD partitioner turns the stencil's shifted slices into
-1-cell halo exchanges (collective-permutes over ICI) and the energy/DFT
+1-cell halo exchanges (collective-permutes over the device interconnect) and the energy/DFT
 reductions into ``psum``s automatically. This is the scaling-book recipe:
 pick a mesh, annotate shardings, let XLA insert collectives.
 

@@ -8,15 +8,15 @@ sharded over a ``"sweep"`` mesh axis, so N design variants run
 data-parallel — one per device group — inside the same single XLA
 program the unsharded sweep uses.
 
-Why this is the right DCN shape: sweep members are *independent* — the
-hot loop has zero cross-variant communication, so the ``"sweep"`` axis
-can span hosts (DCN) with no bandwidth cost; the only cross-host traffic
-is the final result gather (a few KB of DFT accumulators per variant).
-Spatial decomposition (1-cell halos every step — parallel/sharding.py)
-composes on a second ``"x"`` axis that should stay *within* a host so
-halo exchanges ride ICI. This is the scaling-book layering: fast
-collectives on the fast interconnect, embarrassing parallelism on the
-slow one.
+Why this layout: sweep members are *independent* — the hot loop has
+zero cross-variant communication, so the ``"sweep"`` axis can span hosts
+over the (slow) cross-host network with no bandwidth cost; the only
+cross-host traffic is the final result gather (a few KB of DFT
+accumulators per variant). Spatial decomposition (1-cell halos every
+step — parallel/sharding.py) composes on a second ``"x"`` axis that
+should stay *within* a host so halo exchanges ride the fast device
+interconnect (NVLink between the GPUs of one host). Fast collectives on
+the fast interconnect, embarrassing parallelism on the slow one.
 
 On a multi-host pod slice, initialize ``jax.distributed`` first; the
 same entry points then build the sweep axis across all hosts
@@ -47,7 +47,8 @@ def make_sweep_mesh(
     ``n_sweep × n_spatial`` must cover the device list; by default all
     devices go on the sweep axis. When more than one process participates
     (multi-host), the hybrid mesh builder keeps the spatial axis packed
-    within hosts so halos ride ICI and only the sweep axis spans DCN.
+    within hosts so halos stay on the in-host interconnect and only the
+    sweep axis spans hosts.
     """
     devices = list(devices if devices is not None else jax.devices())
     if n_sweep is None:

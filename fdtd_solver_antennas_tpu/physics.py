@@ -4,7 +4,7 @@ Behavioral parity with the reference ``antenna_sim/physics.py:1-93``
 (Hammerstad–Jensen effective permittivity / edge extension, TM10 design,
 two-slot power pattern, efficiency heuristic), re-written array-library
 agnostic so the pattern functions trace under ``jax.jit``/``vmap`` and run
-on TPU (the reference is NumPy-only).
+on the JAX device (the reference is NumPy-only).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ Huygens box; this module applies the equivalence theorem
     E_θ = −jk/(4πr)·(L_φ + η0 N_θ),   E_φ = +jk/(4πr)·(L_θ − η0 N_φ)
 
 with the radiation integrals expressed as complex matmuls over surface
-points × angle grid — MXU work on TPU. All six faces are concatenated into
+points × angle grid. All six faces are concatenated into
 one point cloud and all frequencies (and, for sweeps, all batch members)
 run in a single jitted ``lax.scan`` — one device program, no per-face or
 per-frequency host round trips. Radiated power comes from the Poynting
@@ -26,12 +26,14 @@ property the reference gets from disk replay.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import List, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..ops.fdtd import HIGHEST
 from ..physics import C0, ETA0
 
 # Cap on P·A_chunk elements per device intermediate (~256 MB of f32);
@@ -71,9 +73,11 @@ def _radiation_integrals(pts, w, F_re, F_im, G_re, G_im, k_arr, rhat):
     pts: (P, 3); w: (P,); F_*/G_* (J_s and M_s): (K, P, 3) — K rows are
     (batch·)frequency entries; k_arr: (K,); rhat: (A, 3). Returns stacked
     float32 (K, 2, 2, 3, A): axes (row, N/L, re/im, xyz, angle). Each row
-    is four real (3, P) @ (P, A) matmuls per integral — MXU work.
+    is four real (3, P) @ (P, A) matmuls per integral, all at HIGHEST
+    precision (the phases and sums carry the pattern's accuracy).
     """
-    KR0 = pts @ rhat.T  # (P, A)
+    mm = partial(jnp.matmul, precision=HIGHEST)
+    KR0 = mm(pts, rhat.T)  # (P, A)
     wcol = w[:, None]
 
     def body(_, x):
@@ -84,7 +88,8 @@ def _radiation_integrals(pts, w, F_re, F_im, G_re, G_im, k_arr, rhat):
         def integ(re_, im_):
             wre = (re_ * wcol).T  # (3, P)
             wim = (im_ * wcol).T
-            return jnp.stack([wre @ c - wim @ s, wre @ s + wim @ c])
+            return jnp.stack([mm(wre, c) - mm(wim, s),
+                              mm(wre, s) + mm(wim, c)])
 
         return 0, jnp.stack([integ(fre, fim), integ(gre, gim)])
 

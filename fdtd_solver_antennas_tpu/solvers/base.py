@@ -10,7 +10,7 @@ reference's defensive contract that its GUIs rely on.
 Where the reference's ``prepare`` builds a C++ CSXCAD structure and its
 ``run`` enters the openEMS DLL, ours builds the mesh/coefficients and a
 jit-compiled simulation function; ``run`` executes the scanned time loop on
-the TPU and post-processes in-memory (no disk artifacts).
+the JAX device and post-processes in-memory (no disk artifacts).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ class FDTDSolverResult:
     """Far-field result (reference: OpenEMSResult, fixed.py:22-30).
 
     ``intensity`` is a (n_theta, n_phi)-shaped dBi grid when ``is_dBi`` is
-    True. Extra TPU-native diagnostics (S11 sweep, port impedance, timing)
+    True. Extra FDTD diagnostics (S11 sweep, port impedance, timing)
     ride along without breaking the reference surface.
     """
 
@@ -46,7 +46,7 @@ class FDTDSolverResult:
     intensity: Optional[np.ndarray] = None
     sim_path: Optional[str] = None  # kept for API parity; always None (in-memory)
     is_dBi: bool = False
-    # --- TPU-native extras (not in the reference result) ---
+    # --- extras (not in the reference result) ---
     freq: Optional[np.ndarray] = None  # S11 sweep frequencies (Hz)
     s11: Optional[np.ndarray] = None  # complex S11(f)
     z_in: Optional[np.ndarray] = None  # complex Zin(f)

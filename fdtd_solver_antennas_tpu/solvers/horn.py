@@ -3,7 +3,7 @@
 The reference only *previews* horns in its designer
 (``multi_patch_designer.py:31-41``, ``gui_app.py`` PyVista frustum render) —
 it has no horn field solver. This module goes beyond parity: a full-wave
-horn simulation on the same TPU engine, using the ``ConvexPolyhedron``
+horn simulation on the same FDTD engine, using the ``ConvexPolyhedron``
 plate primitive for the (planar) slanted flare walls of a pyramidal horn.
 
 Geometry (axis +z):

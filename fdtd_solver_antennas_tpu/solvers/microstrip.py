@@ -1,4 +1,4 @@
-"""Microstrip-fed patch antenna solver (TPU-native).
+"""Microstrip-fed patch antenna solver.
 
 Reproduces the reference's realistic PCB-style patch with a 50 Ω microstrip
 feed (``solver_fdtd_openems_microstrip.py:134-477``): Wheeler width

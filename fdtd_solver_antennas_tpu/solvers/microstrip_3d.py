@@ -1,4 +1,4 @@
-"""Full-sphere microstrip patch solver (TPU-native).
+"""Full-sphere microstrip patch solver.
 
 Parity with ``solver_fdtd_openems_microstrip_3d.py``: same geometry as the
 microstrip solver but φ = 0..360° sampling with configurable θ/φ steps and
@@ -7,7 +7,7 @@ the mesh-quality → points-per-wavelength map {1:12, 2:16, 3:20, 4:25, 5:32}
 
 The reference's runner loops per-φ because the openEMS NF2FF helper takes
 one cut at a time (microstrip_3d.py:221-248); our transform is a single
-einsum over the whole (θ, φ) grid — no loop, one MXU-heavy program.
+einsum over the whole (θ, φ) grid — no loop, one matmul-heavy program.
 """
 
 from __future__ import annotations

@@ -167,6 +167,7 @@ def prepare_multi_patch_3d(
     cleanup: bool = True,  # parity arg, ignored
     verbose: int = 0,
     log_cb: Optional[Callable[[str], None]] = None,
+    pad_multiple: Tuple[int, int, int] = (1, 1, 1),
 ) -> SolverPrepared:
     try:
         if not patches and not horns:
@@ -419,10 +420,8 @@ def prepare_multi_patch_3d(
             # build_simulation default (0.85–1.15·f0) clamped it to a
             # band edge
             nf_freqs_hz=np.linspace(max(1e8, 0.7 * f_lo), 1.3 * f_hi, 15),
+            pad_multiple=pad_multiple,
         )
-        # surface the resolved engine path (kernel demotions used to be
-        # silent — VERDICT r3 weak #5); rides the Port Diagnostics pane
-        _log(f"engine path: {sim.pallas_mode_reason}")
 
         t_step = max(0.5, float(theta_step_deg))
         p_step = max(1.0, float(phi_step_deg))

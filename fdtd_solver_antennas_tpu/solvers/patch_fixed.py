@@ -1,4 +1,4 @@
-"""Canonical 3D patch solver ("fixed" solver parity), TPU-native.
+"""Canonical 3D patch solver ("fixed" solver parity).
 
 Re-creates the reference's tutorial-faithful scene and run budget
 (``solver_fdtd_openems_fixed.py:113-342``) on the in-repo FDTD engine:
@@ -40,13 +40,14 @@ def probe_fdtd(dll_dir: str = "") -> SolverProbe:
 
     API-parity stand-in for the reference's DLL discovery
     (``probe_openems_fixed``, fixed.py:92-110) — there are no DLLs to find;
-    we report the JAX backend and devices instead. ``dll_dir`` is accepted
-    and ignored so call sites keep working.
+    we report the JAX backend, device kind and devices instead.
+    ``dll_dir`` is accepted and ignored so call sites keep working.
     """
     try:
         devices = jax.devices()
         api = {
             "backend": [devices[0].platform],
+            "device_kind": [devices[0].device_kind],
             "devices": [str(d) for d in devices],
         }
         return SolverProbe(True, f"JAX backend ready: {devices}", api)
@@ -158,7 +159,7 @@ def prepare_patch_fixed(
 
         return SolverPrepared(
             True,
-            f"TPU-native fixed solver prepared (grid {grid.shape}, "
+            f"Fixed solver prepared (grid {grid.shape}, "
             f"{grid.num_cells} cells)",
             sim=sim,
             theta=theta,
@@ -181,7 +182,7 @@ def run_prepared_fixed(
 
     Mirrors ``run_prepared_openems_fixed`` (fixed.py:257-342): NF2FF at the
     requested frequency, dBi via 20·log10(E/Emax) + 10·log10(Dmax) — plus
-    the S11 sweep the TPU engine gets for free from the port DFTs.
+    the S11 sweep the engine gets for free from the port DFTs.
     ``progress_cb``/``abort_cb`` follow :meth:`PreparedSimulation.run`.
     """
     try:
@@ -236,7 +237,7 @@ def run_prepared_fixed(
         )
         return FDTDSolverResult(
             True,
-            "TPU-native FDTD completed",
+            "FDTD completed",
             theta=np.deg2rad(theta),
             phi=np.deg2rad(phi),
             intensity=intensity_db,

@@ -18,7 +18,7 @@ from typing import Iterator, List, Tuple
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/fdtd_tpu_trace") -> Iterator[str]:
+def trace(log_dir: str = "/tmp/fdtd_trace") -> Iterator[str]:
     """Capture a jax.profiler trace of the enclosed block.
 
     Usage::

@@ -27,9 +27,8 @@ def main() -> int:
     print("Checking environment…")
     ok = True
     ok &= check("numpy", "pip install numpy")
-    ok &= check("jax", "pip install jax (CPU) or a TPU/driver build")
+    ok &= check("jax", "pip install jax (CPU) or jax[cuda12] (GPU)")
     ok &= check("matplotlib", "pip install matplotlib")
-    ok &= check("pydantic", "pip install pydantic")
     if not ok:
         print("Install the missing dependencies and retry.")
         return 1

@@ -35,7 +35,7 @@ def _build(n_steps, check_every=48):
     scene.add_lumped_port(1, 50.0, [-6, 0, 0], [-6, 0, 1.6], direction="z")
     cfg = FDTDConfig(
         n_steps_max=n_steps, check_every=check_every, end_criteria=1e-30,
-        probe_decimation=4, use_pallas=False,
+        probe_decimation=4,
     )
     return build_simulation(
         scene, grid, f0=2.45e9, fc=1.225e9, cfg=cfg,

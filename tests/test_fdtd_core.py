@@ -212,43 +212,3 @@ def test_port_on_grid_wall_rejected():
             port_freqs_hz=np.array([3e9]), nf_freqs_hz=np.array([3e9]),
             nf_margin_cells=2,
         )
-
-
-def test_forced_pallas_mode_ineligible_raises():
-    """A forced pallas_mode that cannot engage must fail loudly — a
-    silent fallback would make a user benchmark the wrong code path."""
-    grid = _tiny_scene_grid()
-    scene = Scene()
-    scene.add_lumped_port(1, 50.0, [0, 0, 0], [0, 0, 3.0], direction="z")
-    # use a z > 128 grid with the TILED lane layout forced
-    # (chunk_fused=False) so the chunk kernel is structurally ineligible
-    # — under the round-5 fused packing the same grid is legal, which is
-    # pinned by test_pallas_kernel.py::test_fused_packing_lifts_z128_wall
-    tall = _tiny_scene_grid(z_levels=np.linspace(-20, 25, 131))
-    scene2 = Scene()
-    scene2.add_lumped_port(1, 50.0, [0, 0, -10], [0, 0, -5], direction="z")
-    cfg = FDTDConfig(n_steps_max=100, use_pallas=True, pallas_mode="chunk",
-                     chunk_fused=False)
-    with pytest.raises(ValueError, match="pallas_mode"):
-        build_simulation(
-            scene2, tall, f0=3e9, fc=1.5e9, cfg=cfg,
-            port_freqs_hz=np.array([3e9]), nf_freqs_hz=np.array([3e9]),
-            nf_margin_cells=2,
-        )
-
-
-def test_chunk_eligible_grid_gets_no_stream_padding():
-    """The stream-block prepass must not pad x for grids the chunk
-    kernel will take — dead planes would be computed every step
-    (measured ~12% on the canonical patch before the fix)."""
-    grid = _tiny_scene_grid()
-    scene = Scene()
-    scene.add_lumped_port(1, 50.0, [0, 0, 0], [0, 0, 3.0], direction="z")
-    cfg = FDTDConfig(n_steps_max=100, use_pallas=True)
-    sim = build_simulation(
-        scene, grid, f0=3e9, fc=1.5e9, cfg=cfg,
-        port_freqs_hz=np.array([3e9]), nf_freqs_hz=np.array([3e9]),
-        nf_margin_cells=2,
-    )
-    assert sim.pallas_mode == "chunk"
-    assert (sim.padded_shape or sim.grid.shape)[0] == sim.grid.shape[0]

@@ -85,7 +85,7 @@ def test_full_density_matches_pec_stamp(problem):
     )
     ref = build_simulation(
         scene, sim.grid, f0=f0, fc=f0,
-        cfg=FDTDConfig(n_steps_max=4000, boundary="MUR", use_pallas=False),
+        cfg=FDTDConfig(n_steps_max=4000, boundary="MUR"),
         port_freqs_hz=np.asarray(sim.port_freqs_hz),
         nf_freqs_hz=np.asarray(sim.nf_freqs_hz),
     )

@@ -3,7 +3,7 @@ streamlit_app.py:339-344): a patch fed along its resonant dimension must
 resonate where the cavity model says, and radiate a broadside pattern.
 
 Runs a reduced-size scene so CPU CI stays fast; the full canonical scene is
-exercised by bench.py on the TPU.
+exercised by chip_smoke.py and bench.py on the GPU.
 """
 
 import numpy as np

@@ -2,7 +2,7 @@
 sweeps must reproduce the unsharded sweep's results exactly.
 
 Runs on the virtual 8-CPU mesh (tests/conftest.py). Covers:
-- the pure "sweep" axis (the DCN-spanning, zero-collective layout);
+- the pure "sweep" axis (the zero-collective layout that may span hosts);
 - batch padding when variants don't divide the sweep axis;
 - the composed ("sweep", "x") mesh — data parallel across sweep groups,
   spatial halos within each group.
